@@ -4,7 +4,7 @@
 // Role parity with the reference's native IO path (OpenCV imread called from
 // /root/reference/src/io/euroc.rs:122-125 and the csv crate): image decode
 // and dataset streaming stay off the Python interpreter and off the device,
-// feeding frames to the TPU input pipeline ahead of time.
+// feeding frames to the device input pipeline ahead of time.
 //
 // Exposed as a plain C ABI consumed via ctypes (orbslam3_tpu/io/native.py).
 //

@@ -29,7 +29,6 @@ class OrbConfig(NamedTuple):
     fast_threshold_min: float = 7.0
     cell: int = 32
     k_cell: int = 6
-    use_pallas_fast: bool = True  # Pallas fused FAST+NMS (TPU only; exact)
 
 
 class Features(NamedTuple):
@@ -68,13 +67,9 @@ def detect_orb(img, cfg: OrbConfig = OrbConfig()) -> Features:
 def detect_orb_batch(imgs, cfg: OrbConfig = OrbConfig()) -> Features:
     """(B, H, W) f32 -> Features with a leading batch axis B.
 
-    The per-level kernels are small (kernel-launch-bound across 8 pyramid
-    levels — BASELINE.md); batching B same-shape images divides the
-    launch count per image by B with zero padding overhead (unlike
-    batching pyramid LEVELS — a measured-slower variant; see
-    ARCHITECTURE.md). Scores are computed on the batched (B, h, w) stack
-    directly because the Pallas FAST kernel cannot be vmapped
-    (ANY-memspace input spec); selection/description vmap over the batch.
+    The per-level kernels are small, so batching B same-shape images
+    divides the kernel launches per image by B with no padding (batching
+    pyramid LEVELS instead would pad every level to level 0's shape).
     """
     levels_b = jax.vmap(
         lambda im: pyr_ops.build_pyramid(im, cfg.n_levels, cfg.scale_factor)
@@ -102,27 +97,16 @@ def _score_maps_batched(levels_b, cfg: OrbConfig):
 
     levels_b: list over pyramid levels of (B, h_lv, w_lv) images.
     """
-    use_pallas = cfg.use_pallas_fast and jax.default_backend() == "tpu"
-    outs = []
-    for lv_imgs in levels_b:
-        if use_pallas:
-            from orbslam3_tpu.ops.fast_pallas import fast_nms_pallas_batch
 
-            s = fast_nms_pallas_batch(
-                lv_imgs, cfg.fast_threshold, cfg.fast_threshold_min
-            )
-        else:
-            def one(im):
-                score = fast_ops.fast_score(im, cfg.fast_threshold)
-                # low-threshold fallback where the strict map is empty-ish:
-                # attenuated low-threshold max, so weak corners only win
-                # where no strong corner exists in the cell.
-                score_lo = fast_ops.fast_score(im, cfg.fast_threshold_min) * 1e-3
-                return fast_ops.nms3x3(jnp.maximum(score, score_lo))
+    def one(im):
+        score = fast_ops.fast_score(im, cfg.fast_threshold)
+        # low-threshold fallback where the strict map is empty-ish:
+        # attenuated low-threshold max, so weak corners only win
+        # where no strong corner exists in the cell.
+        score_lo = fast_ops.fast_score(im, cfg.fast_threshold_min) * 1e-3
+        return fast_ops.nms3x3(jnp.maximum(score, score_lo))
 
-            s = jax.vmap(one)(lv_imgs)
-        outs.append(s)
-    return outs
+    return [jax.vmap(one)(lv_imgs) for lv_imgs in levels_b]
 
 
 def _select_impl(levels, scores, cfg: OrbConfig) -> Features:

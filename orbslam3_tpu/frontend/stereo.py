@@ -3,7 +3,7 @@
 Capability parity with /root/reference/src/tracking/frame/stereo.rs:84-216
 (row-constrained L<->R ORB matching with disparity bounds, z = fx*b/d),
 re-designed as a dense masked cost matrix + mutual argmin — no per-feature
-loops, MXU Hamming distances (ops/hamming.py).
+loops, matmul Hamming distances (ops/hamming.py).
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ jit/vmap/grad-safe (small-angle branches via jnp.where with safe operands).
 
 Reference capability: /root/reference/src/geometry/{so3.rs,se3.rs,sim3.rs}.
 Representation choice differs deliberately: rotations are unit quaternions
-(wxyz) stored in flat arrays, which batch and normalize cheaply on the VPU,
+(wxyz) stored in flat arrays, which batch and normalize cheaply,
 instead of nalgebra UnitQuaternion objects.
 """
 from orbslam3_tpu.geometry import quat, se3, sim3, so3  # noqa: F401

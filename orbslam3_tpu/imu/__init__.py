@@ -1,4 +1,4 @@
-"""IMU preintegration and noise models (TPU-native, scan-based).
+"""IMU preintegration and noise models (scan-based).
 
 Capability parity with /root/reference/src/imu/ (preintegration.rs, sample.rs,
 types.rs, state.rs) — but using standard Forster-style *gravity-free* deltas

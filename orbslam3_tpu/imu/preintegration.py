@@ -19,11 +19,12 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from orbslam3_tpu.geometry import quat, so3
 from orbslam3_tpu.utils.precision import matmul_hp as mm
 
-GRAVITY = jnp.asarray([0.0, 0.0, -9.81], dtype=jnp.float32)
+GRAVITY = np.asarray([0.0, 0.0, -9.81], dtype=np.float32)
 
 
 class ImuNoise(NamedTuple):
@@ -356,8 +357,8 @@ def integrate_assoc(gyro, acc, dts, mask, bias_g, bias_a, noise: ImuNoise = ImuN
 
     Same inputs/semantics as `integrate`, but O(log N) sequential depth
     instead of an N-step scan — the composition of preintegrated segments
-    (merge) is associative, so the window parallelizes. On TPU this turns
-    a 32-deep chain of tiny matmuls into 5 rounds of batched ones.
+    (merge) is associative, so the window parallelizes: a 32-deep chain
+    of tiny matmuls becomes 5 rounds of batched ones.
     """
     states = _single_step_states(gyro, acc, dts, mask, bias_g, bias_a, noise)
     merged = jax.lax.associative_scan(jax.vmap(merge), states)

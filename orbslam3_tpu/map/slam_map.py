@@ -366,9 +366,8 @@ def _remove_map_points(st: MapState, bad_mask, max_cull: int = 4096):
     obs = st.mp_obs_kf[cull_ids]  # (C, O)
     obs_ok = (obs >= 0) & cull_ok[:, None]
     obs_safe = jnp.where(obs_ok, obs, 0)
-    # covis decrement as a one-hot MXU matmul instead of a (C*O*O)-element
-    # scatter-add (TPU scatters ~14 ns/elt made this 13.7 ms even with
-    # nothing to cull): H[c, k] = 1 iff culled point c is observed by kf k;
+    # covis decrement as a one-hot matmul instead of a (C*O*O)-element
+    # scatter-add: H[c, k] = 1 iff culled point c is observed by kf k;
     # D = H^T H counts, per keyframe pair, the shared observations lost.
     # Entries are <= C and O <= 16, exact in bf16xbf16->f32 accumulation.
     K = st.covis.shape[0]

@@ -27,25 +27,25 @@ from orbslam3_tpu.map.slam_map import (
     spawn_map_points,
 )
 from orbslam3_tpu.ops.hamming import hamming_matrix
+from orbslam3_tpu.utils.precision import matmul_hp
 
 
 def _projection_matrix(cam: Camera, q_wc, p_wc):
     """3x4 world->pixel projection for a CAMERA pose (T_BC already applied)."""
     R = quat.to_matrix(quat.conj(q_wc))  # world -> cam rotation
-    t = -R @ p_wc
+    t = -matmul_hp(R, p_wc)
     K = jnp.asarray(
         [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]]
     )
-    return K @ jnp.concatenate([R, t[:, None]], axis=1)
+    return matmul_hp(K, jnp.concatenate([R, t[:, None]], axis=1))
 
 
 def _dlt(P1, P2, uv1, uv2):
     """Two-view DLT via row-normalized inhomogeneous least squares.
 
     The textbook form (null vector of the 4x4 system by SVD — reference
-    triangulation.rs:715-760) costs ~7.7 ms for a 1024-feature batch on
-    TPU: tiny batched SVDs lower to sequential Jacobi sweeps. Fixing the
-    homogeneous scale (X_w = 1) instead gives a 3-unknown least-squares
+    triangulation.rs:715-760) lowers tiny batched SVDs to iterative
+    Jacobi sweeps. Fixing the homogeneous scale (X_w = 1) instead gives a 3-unknown least-squares
     problem whose 3x3 normal equations solve in closed form (adjugate) —
     pure arithmetic, microseconds for the whole batch. Rows are unit-
     normalized first (the standard conditioning fix); the only case the
@@ -61,8 +61,10 @@ def _dlt(P1, P2, uv1, uv2):
     )
     A = A / jnp.linalg.norm(A, axis=1, keepdims=True).clip(1e-9)
     B, d = A[:, :3], A[:, 3]
-    M = B.T @ B
-    b = -B.T @ d
+    # full f32 throughout: pixel-scale rows (~1e3) make TF32 products
+    # lose whole pixels of epipolar distance and centimetres of depth
+    M = matmul_hp(B.T, B)
+    b = -matmul_hp(B.T, d)
     # explicit adjugate solve
     c00 = M[1, 1] * M[2, 2] - M[1, 2] * M[2, 1]
     c01 = M[0, 2] * M[2, 1] - M[0, 1] * M[2, 2]
@@ -75,7 +77,7 @@ def _dlt(P1, P2, uv1, uv2):
     c22 = M[0, 0] * M[1, 1] - M[0, 1] * M[1, 0]
     det = M[0, 0] * c00 + M[0, 1] * c10 + M[0, 2] * c20
     adj = jnp.asarray([[c00, c01, c02], [c10, c11, c12], [c20, c21, c22]])
-    return (adj @ b) / jnp.where(jnp.abs(det) > 1e-12, det, 1e-12)
+    return matmul_hp(adj, b) / jnp.where(jnp.abs(det) > 1e-12, det, 1e-12)
 
 
 def _pair_triangulate(st: MapState, kf_id, q1, p1, n_id, pair_ok, cam: Camera,
@@ -100,21 +102,21 @@ def _pair_triangulate(st: MapState, kf_id, q1, p1, n_id, pair_ok, cam: Camera,
     # the current feature (fundamental from relative pose)
     R1 = quat.to_matrix(quat.conj(q1))
     R2 = quat.to_matrix(quat.conj(q2))
-    R12 = R2 @ R1.T  # cam1 -> cam2 rotation
-    t12 = R2 @ (p1 - p2)  # cam1 origin in cam2
+    R12 = matmul_hp(R2, R1.T)  # cam1 -> cam2 rotation
+    t12 = matmul_hp(R2, p1 - p2)  # cam1 origin in cam2
 
     def hat(v):
         return jnp.asarray([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
 
     Kmat = jnp.asarray([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]])
     Kinv = jnp.linalg.inv(Kmat)
-    F = Kinv.T @ hat(t12) @ R12 @ Kinv  # x2^T F x1 = 0
+    F = matmul_hp(matmul_hp(Kinv.T, hat(t12)), matmul_hp(R12, Kinv))  # x2^T F x1 = 0
 
     ones1 = jnp.ones((N, 1))
     x1h = jnp.concatenate([st.kf_uv[kf_id], ones1], axis=1)  # (N, 3)
     x2h = jnp.concatenate([st.kf_uv[n_id], ones1], axis=1)
-    lines = x1h @ F.T  # (N, 3) epipolar lines in image 2
-    num = jnp.abs(x2h @ lines.T).T  # (N1, N2): |x2 . l1|
+    lines = matmul_hp(x1h, F.T)  # (N, 3) epipolar lines in image 2
+    num = jnp.abs(matmul_hp(x2h, lines.T)).T  # (N1, N2): |x2 . l1|
     denom = jnp.sqrt(lines[:, 0] ** 2 + lines[:, 1] ** 2).clip(1e-6)
     epi_dist = num / denom[:, None]  # (N1, N2)
 

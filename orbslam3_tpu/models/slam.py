@@ -78,7 +78,7 @@ class SlamConfig(NamedTuple):
     vi_ba_fixed: int = 0
     # 4 LM iterations measured ATE-equivalent to 8 on the noisy-IMU eval
     # (0.0130 vs 0.0136): the window re-solves every keyframe from a warm
-    # start, so late iterations buy nothing. ~4 ms/iteration on TPU.
+    # start, so late iterations buy nothing.
     ba_iters: int = 4
     cull_every_kfs: int = 3
     new_mp_budget: int = 384

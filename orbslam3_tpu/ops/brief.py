@@ -1,6 +1,6 @@
 """Oriented BRIEF descriptors + intensity-centroid orientation, batched.
 
-TPU-native replacement for OpenCV ORB's steered-BRIEF stage (reference calls
+Replacement for OpenCV ORB's steered-BRIEF stage (reference calls
 it via stereo.rs:68-78). Differences by design:
 
   * the 256-pair sampling pattern is our own deterministic Gaussian BRIEF
@@ -10,7 +10,7 @@ it via stereo.rs:68-78). Differences by design:
     thousands of keypoints process as one fused program.
 
 Descriptors are bit-packed to (N, 32) uint8, plus an "unpacked" ±1 bf16 view
-(N, 256) used by the MXU Hamming matmul (ops/hamming.py).
+(N, 256) used by the Hamming matmul (ops/hamming.py).
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from orbslam3_tpu.utils.precision import matmul_hp
+
 PATCH = 31  # descriptor patch diameter (level pixels)
 HALF = PATCH // 2
 ORI_RADIUS = 15  # intensity-centroid radius
@@ -26,17 +28,19 @@ ORI_RADIUS = 15  # intensity-centroid radius
 GATHER = 37
 GHALF = GATHER // 2
 
+# Module constants are numpy: importing the package allocates nothing on a
+# device (render workers import it too).
 _rng = np.random.default_rng(42)
 # BRIEF pattern: 256 (p, q) pairs ~ N(0, (PATCH/5)^2), clipped to the patch.
 _pat = np.clip(_rng.normal(0.0, PATCH / 5.0, size=(256, 2, 2)), -HALF, HALF)
-BRIEF_PATTERN = jnp.asarray(_pat, dtype=jnp.float32)  # (256, 2 points, (x,y))
+BRIEF_PATTERN = _pat.astype(np.float32)  # (256, 2 points, (x,y))
 
 # circular mask offsets for orientation moments
 _yy, _xx = np.mgrid[-ORI_RADIUS : ORI_RADIUS + 1, -ORI_RADIUS : ORI_RADIUS + 1]
 _circ = (_yy**2 + _xx**2) <= ORI_RADIUS**2
-ORI_MASK = jnp.asarray(_circ, jnp.float32)  # (31, 31)
-ORI_X = jnp.asarray(_xx * _circ, jnp.float32)
-ORI_Y = jnp.asarray(_yy * _circ, jnp.float32)
+ORI_MASK = _circ.astype(np.float32)  # (31, 31)
+ORI_X = (_xx * _circ).astype(np.float32)
+ORI_Y = (_yy * _circ).astype(np.float32)
 
 
 def gather_patches(img, ys, xs, size: int):
@@ -81,16 +85,15 @@ def orientations_from_patches(patches):
     """Intensity-centroid angles from pre-gathered square patches.
 
     Accepts (N, S, S) with S >= 31 (central 31x31 window used). Formulated
-    as ONE (N, S^2) x (S^2, 2) matmul — moments on the MXU instead of a
-    broadcast-multiply-reduce (which is relayout-bound on TPU).
+    as ONE (N, S^2) x (S^2, 2) matmul. The moments sum ~700 products of
+    0..255 intensities and offsets up to 15, so a TF32 product (10-bit
+    mantissa) would move the angle by up to ~1e-2 rad near symmetric
+    patches: full f32.
     """
     N, S, _ = patches.shape
     if S not in _MOMENT_W:
         _MOMENT_W[S] = _moment_weights(S)
-    m = jnp.dot(
-        patches.reshape(N, S * S), jnp.asarray(_MOMENT_W[S]),
-        preferred_element_type=jnp.float32,
-    )
+    m = matmul_hp(patches.reshape(N, S * S), jnp.asarray(_MOMENT_W[S]))
     return jnp.arctan2(m[:, 1], m[:, 0])
 
 
@@ -127,11 +130,10 @@ def descriptors_from_patches(patches, angles):
     """Steered-BRIEF from pre-gathered (N, G, G) patches.
 
     Rotated pattern points are sampled nearest-neighbor (what OpenCV ORB's
-    integer lookup does). The sampling "gather" is reformulated as two
-    one-hot contractions — a row-selection batched matmul followed by a
-    masked column reduction — because TPU gathers cost ~14 ns/element while
-    the equivalent (N,512,G)x(N,G,G) bf16 einsum rides the MXU (measured
-    3.4x faster end-to-end).
+    integer lookup does). The sampling "gather" is formulated as two
+    one-hot contractions — a row-selection batched bf16 matmul followed by
+    a masked column reduction. Each output sums exactly one nonzero
+    product, so the result is the bf16-rounded sample on every backend.
     """
     N = patches.shape[0]
     ca = jnp.cos(angles)
@@ -172,5 +174,5 @@ def unpack_bits(desc):
 
 
 def unpack_pm1(desc):
-    """(N, 32) uint8 -> (N, 256) ±1 bfloat16 for the MXU Hamming matmul."""
+    """(N, 32) uint8 -> (N, 256) ±1 bfloat16 for the Hamming matmul."""
     return (unpack_bits(desc).astype(jnp.bfloat16) * 2.0 - 1.0)

@@ -1,10 +1,10 @@
 """FAST-16 corner detection + grid-constrained keypoint selection, pure XLA.
 
-TPU-native replacement for OpenCV's FAST inside ORB (reference:
-stereo.rs:38-49). Data-parallel formulation:
+Replacement for OpenCV's FAST inside ORB (reference: stereo.rs:38-49).
+Data-parallel formulation:
 
   * the 16-pixel Bresenham circle becomes 16 shifted copies of the image
-    (VPU elementwise, fully fused by XLA);
+    (elementwise, fused by XLA);
   * segment-of-9 contiguity is a 16-bit rotate/AND bit-trick instead of a
     per-pixel loop;
   * quadtree distribution (OpenCV) becomes per-cell top-k + per-level quota
@@ -15,7 +15,7 @@ formulation), used for NMS ranking and Harris-free selection.
 """
 from __future__ import annotations
 
-from functools import partial
+from functools import partial, reduce
 
 import jax
 import jax.numpy as jnp
@@ -75,9 +75,10 @@ def fast_score(img, threshold: float):
 
     is_corner = seg9(brighter) | seg9(darker)
 
-    # SAD score over the qualifying polarity
-    sad_b = jnp.sum(jnp.maximum(diff - threshold, 0.0), axis=0)
-    sad_d = jnp.sum(jnp.maximum(-diff - threshold, 0.0), axis=0)
+    # SAD score over the qualifying polarity, summed in a fixed left-to-
+    # right order so every backend produces the same bits
+    sad_b = reduce(jnp.add, list(jnp.maximum(diff - threshold, 0.0)))
+    sad_d = reduce(jnp.add, list(jnp.maximum(-diff - threshold, 0.0)))
     score = jnp.maximum(sad_b, sad_d)
     return jnp.where(is_corner, score, 0.0)
 
@@ -145,7 +146,7 @@ def subpixel_refine(score, ys, xs):
     Returns (dy, dx) offsets in [-0.5, 0.5] for each integer peak. Integer
     FAST peaks carry ~0.5-2 px quantization error which, through stereo
     disparity, becomes meter-level depth error at range — this recovers
-    most of it for ~free (two gathers + a few VPU ops).
+    most of it for ~free (two gathers + a few elementwise ops).
     """
     h, w = score.shape
     y0 = jnp.clip(ys, 1, h - 2)

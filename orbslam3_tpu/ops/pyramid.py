@@ -1,4 +1,4 @@
-"""Image pyramid + separable Gaussian blur (XLA convs, MXU/VPU friendly).
+"""Image pyramid + separable Gaussian blur (XLA convs).
 
 Replaces OpenCV ORB's internal pyramid (reference: stereo.rs:37-49 config —
 8 levels, scale 1.2). Every level has a static, padded shape so the whole
@@ -29,13 +29,19 @@ def gaussian_kernel_1d(sigma, radius):
 
 
 def blur(img, sigma=2.0, radius=3):
-    """Separable Gaussian blur of (H, W) image; edge-padded."""
+    """Separable Gaussian blur of (H, W) image; zero-padded.
+
+    Full f32: a TF32 convolution would perturb the 0..255 intensities by
+    ~0.1, enough to flip BRIEF comparisons between near-equal samples.
+    """
     k = gaussian_kernel_1d(sigma, radius)
     x = img[None, None]  # NCHW
     kh = k.reshape(1, 1, -1, 1)
     kw = k.reshape(1, 1, 1, -1)
-    x = jax.lax.conv_general_dilated(x, kh, (1, 1), [(radius, radius), (0, 0)])
-    x = jax.lax.conv_general_dilated(x, kw, (1, 1), [(0, 0), (radius, radius)])
+    conv = partial(jax.lax.conv_general_dilated, window_strides=(1, 1),
+                   precision="highest")
+    x = conv(x, kh, padding=[(radius, radius), (0, 0)])
+    x = conv(x, kw, padding=[(0, 0), (radius, radius)])
     return x[0, 0]
 
 

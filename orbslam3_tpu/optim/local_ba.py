@@ -2,14 +2,14 @@
 
 Replaces the reference's dense-LU LM over (6K+3M)^2 systems
 (/root/reference/src/optimizer/local_ba_lm.rs:454-507) — which is fatal at
-scale — with the TPU-native centerpiece (SURVEY.md §7.1 item 4):
+scale — with a fixed-shape Schur formulation (SURVEY.md §7.1 item 4):
 
   1. per-edge residuals + jacfwd-exact Jacobians, vmapped over a fixed
      (C cams x N feats) edge grid;
   2. Hessian blocks by segment scatters: Hcc (C,6,6), Hpp (P,3,3),
      and a dense per-point cam-stack W (P, 6C, 3);
   3. Schur reduction S = Hcc - sum_p W_p Hpp_p^-1 W_p^T as batched einsums
-     (MXU work), Jacobi-preconditioned f32 solve of the (6C, 6C) system;
+     (matmul work), Jacobi-preconditioned f32 solve of the (6C, 6C) system;
   4. point back-substitution, masked retraction.
 
 Fixed cameras are handled by zeroing their Jacobians (they still constrain
@@ -162,7 +162,7 @@ def solve_local_ba(prob: BAProblem, cam: Camera, iters: int = 10,
         Hpp_inv = jnp.linalg.inv(Hpp_d)
         Hpp_inv = jnp.where(pt_has_obs[:, None, None], Hpp_inv, 0.0)
 
-        # Schur complement (batched MXU einsums)
+        # Schur complement (batched einsums)
         Hcc_full = jnp.zeros((C * 6, C * 6))
         Hcc_full = Hcc_full.reshape(C, 6, C, 6).at[jnp.arange(C), :, jnp.arange(C), :].set(
             Hcc

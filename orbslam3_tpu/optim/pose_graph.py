@@ -8,8 +8,8 @@ closer (the reference exports but never calls it; SURVEY.md §2.1 #23).
 
 Fixed-shape formulation: edges come as padded index/measurement arrays;
 the dense (7K, 7K) normal system is assembled by batched block scatters and
-solved Jacobi-preconditioned. K<=256 keyframes -> 1792^2 system, trivial
-for the MXU; no sparse machinery needed at this scale.
+solved Jacobi-preconditioned. K<=256 keyframes -> 1792^2 system, small
+for a dense solve; no sparse machinery needed at this scale.
 """
 from __future__ import annotations
 

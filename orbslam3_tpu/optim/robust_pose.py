@@ -5,12 +5,12 @@ Plays the role of the reference's PnP-RANSAC
 EPnP minimal solves, early exit) for recovery when the motion prior is
 wrong and projection matching has nothing to anchor on.
 
-TPU-first redesign rather than a port: the stereo frontend backprojects
+A redesign rather than a port: the stereo frontend backprojects
 hundreds of features to body-frame 3D, so the minimal problem becomes
 3-point RIGID ALIGNMENT (Horn 1987, closed-form quaternion from a 4x4
 eigendecomposition) instead of P3P's quartic. All H hypotheses solve as ONE
 vmapped eigh of (H, 4, 4) matrices and score as one (H, N) distance matrix
-on the MXU — no data-dependent loop, no early exit, fixed shapes.
+— no data-dependent loop, no early exit, fixed shapes.
 
 Inlier thresholds are depth-aware: stereo depth error grows ~ z^2/(fx*b),
 so a fixed metric radius would reject everything far and accept everything

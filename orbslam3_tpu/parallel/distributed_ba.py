@@ -6,11 +6,12 @@ The scaling design (How-to-Scale-Your-Model recipe, applied to BA):
     "pt" — each device owns P/n points and builds its partial reduced
     camera system;
   * keyframe poses are REPLICATED (few KB) — the (6K, 6K) Schur system is
-    psum-reduced over ICI and solved identically on every device;
+    psum-reduced over the interconnect and solved identically on every
+    device;
   * point back-substitution is local to each shard — no communication.
 
 Per GN iteration the only collective is one psum of (6K x 6K + 6K) floats:
-for K=256 that is ~9.4 MB — a single ICI hop, far from bandwidth-bound.
+for K=256 that is ~9.4 MB, one all-reduce.
 This replaces the reference's single-threaded whole-map LM
 (/root/reference/src/optimizer/global_ba.rs:184-418, dense LU) and is the
 component the reference has no analog for.
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from orbslam3_tpu.frontend.camera import Camera
 from orbslam3_tpu.optim import robust
@@ -153,6 +154,10 @@ def distributed_global_ba(
     """
     K = q.shape[0]
     O = pts.obs_kf.shape[1]
+    # explicit placement on the mesh: callers' arrays may be committed to
+    # one device (a FusedSlam map is), which a multi-device program rejects
+    q, p, opt_cam = jax.device_put((q, p, opt_cam), NamedSharding(mesh, P()))
+    pts = jax.device_put(pts, NamedSharding(mesh, P("pt")))
 
     zero6 = jnp.zeros(6, jnp.float32)
     zero3 = jnp.zeros(3, jnp.float32)

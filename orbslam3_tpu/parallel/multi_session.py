@@ -1,8 +1,8 @@
 """Multi-session SLAM: D independent sessions, one per mesh device.
 
-The data-parallel serving axis of the framework: a pod maps many robots /
-recorded sequences at once by sharding whole SLAM sessions over a 1-D
-`jax.sharding.Mesh` axis "dp". Each device advances ITS session with the
+The data-parallel serving axis of the framework: a multi-GPU host maps
+many robots / recorded sequences at once by sharding whole SLAM sessions
+over a 1-D `jax.sharding.Mesh` axis "dp". Each device advances ITS session with the
 exact single-session program (`models/fused.py::_slam_step_core` — the
 per-device block is squeezed to rank-0 batch before the step, so
 `lax.cond` keyframe branches stay real branches, not vmap-style selects
@@ -106,7 +106,7 @@ class MultiSessionSlam:
             if len(devs) < n_sessions:
                 raise ValueError(
                     f"{n_sessions} sessions need {n_sessions} devices, have "
-                    f"{len(devs)} (set xla_force_host_platform_device_count)"
+                    f"{len(devs)}"
                 )
             mesh = Mesh(np.array(devs[:n_sessions]), ("dp",))
         if int(np.prod(mesh.devices.shape)) != n_sessions:

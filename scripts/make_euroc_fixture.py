@@ -176,7 +176,7 @@ def write_fixture(outdir, duration=8.0, hz=10.0, scale=0.5, seed=7,
         # loop correction is genuinely needed — a 2 s blackout is handled
         # odometrically by the robust recovery path and the loop closer
         # (correctly) never fires. Early blackouts were tried and belong
-        # to the adversarial TPU bench instead: 0.2*lap diverges (IMU
+        # to the adversarial bench instead: 0.2*lap diverges (IMU
         # barely initialized), 0.4*lap spawns a second map whose merge
         # leaves a ~5 s never-mapped wedge.
         blackout = (0.58 * lap, 0.58 * lap + 3.0)

@@ -2,12 +2,13 @@
 does a genuine revisit outscore aliased views, and does the reference's
 min-covisible-score gate (bow_min_score_gate) keep the genuine candidate?
 
-Usage: python scripts/probe_bow_gate.py  (TPU or CPU)
+Usage: python scripts/probe_bow_gate.py  (GPU or CPU)
 """
 import sys, os; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from orbslam3_tpu.utils import compile_cache
+compile_cache.enable()
 import jax.numpy as jnp
 
 from bench import HARD_WORLD, train_world_vocab

@@ -1,9 +1,9 @@
-"""Time the loop-closer keyframe program on the real TPU."""
+"""Time the loop-closer keyframe program on the default backend."""
 import sys, os, time; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax, jax.numpy as jnp
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from orbslam3_tpu.utils import compile_cache
+compile_cache.enable()
 
 from orbslam3_tpu.loop import vocab as vb
 from orbslam3_tpu.loop.closer import LoopCloser, LoopConfig

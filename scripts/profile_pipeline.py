@@ -3,8 +3,8 @@ import sys, os; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspa
 import time
 import numpy as np
 import jax, jax.numpy as jnp
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from orbslam3_tpu.utils import compile_cache
+compile_cache.enable()
 
 from orbslam3_tpu.io.synthetic import SyntheticConfig, SyntheticWorld
 from orbslam3_tpu.models.slam import SlamConfig, SlamSystem

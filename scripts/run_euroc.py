@@ -20,13 +20,9 @@ import numpy as np
 
 
 def run(seq_dir: str, outdir: str = "/tmp/orbslam3_tpu_euroc",
-        profile: str = "full", max_frames: int = 0, cache_dir: str = None,
+        profile: str = "full", max_frames: int = 0,
         vocab_path: str = None, loop_cfg=None):
     import jax
-
-    if cache_dir:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
     from orbslam3_tpu.eval.metrics import ate_rmse
     from orbslam3_tpu.frontend.camera import Camera
@@ -144,8 +140,11 @@ def main():
     ap.add_argument("--vocab", default=None,
                     help="DBoW2 ORBvoc.txt vocabulary; enables loop closing")
     a = ap.parse_args()
+    from orbslam3_tpu.utils import compile_cache
+
+    compile_cache.enable()
     result = run(a.sequence, a.outdir, a.profile, a.max_frames,
-                 cache_dir="/root/repo/.jax_cache", vocab_path=a.vocab)
+                 vocab_path=a.vocab)
     print(json.dumps(result))
     return 0
 

@@ -15,8 +15,8 @@ import numpy as np
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from orbslam3_tpu.utils import compile_cache
+    compile_cache.enable()
 
     from orbslam3_tpu.eval.metrics import ate_rmse, rpe_rmse
     from orbslam3_tpu.io.synthetic import SyntheticConfig, SyntheticWorld

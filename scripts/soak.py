@@ -10,9 +10,9 @@ exercised together — the interplay the unit tests cover only piecewise.
 
 Reports per-window fps (flatness is the signal), keyframe/point counts
 (boundedness under culling+compaction), compaction & loop counters, host
-RSS, and end ATE; optionally rewrites the soak section of BASELINE.md.
+RSS, and end ATE, then a markdown summary.
 
-Usage: python scripts/soak.py [--duration 160] [--no-write] [--cpu]
+Usage: python scripts/soak.py [--duration 160] [--cpu]
 """
 import sys, os; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -23,28 +23,24 @@ import time
 
 import numpy as np
 
-MARK_BEGIN = "<!-- soak:begin -->"
-MARK_END = "<!-- soak:end -->"
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--duration", type=float, default=160.0)
     ap.add_argument("--window", type=float, default=16.0)
-    ap.add_argument("--no-write", action="store_true")
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
 
     if args.cpu:
         os.environ.pop("JAX_PLATFORMS", None)
-    os.makedirs("/root/repo/.jax_cache", exist_ok=True)
     import jax
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     else:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        from orbslam3_tpu.utils import compile_cache
+        compile_cache.enable()
 
     from bench import HARD_WORLD, train_world_vocab
     from orbslam3_tpu.eval.metrics import ate_rmse
@@ -143,48 +139,35 @@ def main():
     )
     print(json.dumps(summary), flush=True)
 
-    if not args.no_write:
-        lines = [
-            MARK_BEGIN, "",
-            f"## Soak: {args.duration:.0f} s at capacity "
-            f"(`scripts/soak.py`, backend {jax.default_backend()})",
-            "",
-            "Adversarial textured world, continuous revisit laps, noisy "
-            "IMU, loop closing ON, production config, full 256-KF/32k-MP "
-            "capacities.",
-            "",
-            "| t [s] | fps | keyframes | map points | compactions | loops "
-            "| RSS [MB] |",
-            "|---|---|---|---|---|---|---|",
-        ]
-        for r in rows:
-            lines.append(
-                f"| {r['t']:.0f} | {r['fps']} | {r['n_kf']} | {r['n_mp']} "
-                f"| {r['compactions']} | {r['loops']} | {r['rss_mb']} |"
-            )
-        lines += [
-            "",
-            f"End: ATE {summary['ate_m']} m over {summary['frames']} "
-            f"frames; fps first->last window "
-            f"{summary['fps_first_window']} -> {summary['fps_last_window']} "
-            f"(min {summary['fps_min']}); trajectory export of "
-            f"{summary['outs_len_final']} out-chunks took "
-            f"{summary['trajectory_export_s']} s; "
-            f"{summary['loop_corrections']} loop corrections, "
-            f"{summary['candidates_checked']} candidates checked.",
-            "", MARK_END,
-        ]
-        path = "/root/repo/BASELINE.md"
-        txt = open(path).read()
-        block = "\n".join(lines)
-        if MARK_BEGIN in txt:
-            pre = txt.split(MARK_BEGIN)[0]
-            post = txt.split(MARK_END)[1]
-            txt = pre + block + post
-        else:
-            txt = txt.rstrip() + "\n\n" + block + "\n"
-        open(path, "w").write(txt)
-        print("BASELINE.md soak section updated")
+    lines = [
+        f"## Soak: {args.duration:.0f} s at capacity "
+        f"(`scripts/soak.py`, backend {jax.default_backend()})",
+        "",
+        "Adversarial textured world, continuous revisit laps, noisy "
+        "IMU, loop closing ON, production config, full 256-KF/32k-MP "
+        "capacities.",
+        "",
+        "| t [s] | fps | keyframes | map points | compactions | loops "
+        "| RSS [MB] |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    for r in rows:
+        lines.append(
+            f"| {r['t']:.0f} | {r['fps']} | {r['n_kf']} | {r['n_mp']} "
+            f"| {r['compactions']} | {r['loops']} | {r['rss_mb']} |"
+        )
+    lines += [
+        "",
+        f"End: ATE {summary['ate_m']} m over {summary['frames']} "
+        f"frames; fps first->last window "
+        f"{summary['fps_first_window']} -> {summary['fps_last_window']} "
+        f"(min {summary['fps_min']}); trajectory export of "
+        f"{summary['outs_len_final']} out-chunks took "
+        f"{summary['trajectory_export_s']} s; "
+        f"{summary['loop_corrections']} loop corrections, "
+        f"{summary['candidates_checked']} candidates checked.",
+    ]
+    print("\n".join(lines))
 
 
 if __name__ == "__main__":

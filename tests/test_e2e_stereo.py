@@ -1,6 +1,6 @@
 """End-to-end stereo odometry on a synthetic sequence (driver config #1:
 'Stereo-only tracking + motion-only BA'). Small world for CPU test speed —
-the full-size run happens in bench.py on TPU.
+the full-size run happens in bench.py and chip_smoke.py on the GPU.
 """
 import jax.numpy as jnp
 import numpy as np

@@ -1,5 +1,5 @@
 """Front-end tests: FAST detection recall on rendered fiducials, descriptor
-repeatability, MXU-Hamming == popcount-Hamming, stereo depth accuracy.
+repeatability, matmul-Hamming == popcount-Hamming, stereo depth accuracy.
 Mirrors what the reference gets from OpenCV (stereo.rs) but validated against
 a synthetic world with exact ground truth.
 """
@@ -18,6 +18,38 @@ from orbslam3_tpu.ops.hamming import hamming_matrix, hamming_matrix_popcount
 
 CFG = SyntheticConfig(width=384, height=256, n_landmarks=400, duration=2.0, fx=240.0, fy=240.0)
 ORB = OrbConfig(n_features=384, n_levels=4)
+
+
+def _fast_nms_numpy(img, thr_hi, thr_lo):
+    """NumPy FAST-16-9 + dual threshold + 3x3 NMS, written pixel-window
+    by pixel-window (edge-replicated shifts, left-to-right f32 sums)."""
+    h, w = img.shape
+
+    def shift(dy, dx):
+        ys = np.clip(np.arange(h) + dy, 0, h - 1)
+        xs = np.clip(np.arange(w) + dx, 0, w - 1)
+        return img[ys][:, xs]
+
+    diffs = [shift(int(dy), int(dx)) - img for dy, dx in fast_ops.CIRCLE]
+
+    def score(thr):
+        def seg9(masks):
+            m = np.stack(masks + masks[:8])  # circular
+            return np.any([m[s:s + 9].all(0) for s in range(16)], axis=0)
+
+        corner = seg9([d > thr for d in diffs]) | seg9([d < -thr for d in diffs])
+        sb = np.zeros_like(img)
+        sd = np.zeros_like(img)
+        for d in diffs:
+            sb = sb + np.maximum(d - np.float32(thr), np.float32(0))
+            sd = sd + np.maximum(-d - np.float32(thr), np.float32(0))
+        return np.where(corner, np.maximum(sb, sd), np.float32(0))
+
+    s = np.maximum(score(thr_hi), score(thr_lo) * np.float32(1e-3))
+    p = np.pad(s, 1, constant_values=-np.inf)
+    mx = np.max([p[dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)],
+                axis=0)
+    return np.where(s >= mx, s, np.float32(0))
 
 
 @pytest.fixture(scope="module")
@@ -43,6 +75,26 @@ class TestFast:
         assert s[32, 32] == 0  # center (flat bright)
         assert s[5, 5] == 0  # flat dark
         assert s[24, 32] == 0  # mid-edge
+
+    def test_fast_nms_matches_numpy_reference(self):
+        """The plain FAST+NMS path (the detector's only one) equals a NumPy
+        reference bit for bit on every pyramid level of a 752x480 frame."""
+        from orbslam3_tpu.frontend.orb import _score_maps_batched
+        from orbslam3_tpu.ops.pyramid import build_pyramid
+
+        w = SyntheticWorld(SyntheticConfig(width=752, height=480,
+                                           n_landmarks=800, texture="textured"))
+        left, _ = w.render_frame(0.0)
+        cfg = OrbConfig()
+        img = jnp.asarray(left.astype(np.uint8), jnp.float32)
+        levels = [np.asarray(lv) for lv in build_pyramid(img, cfg.n_levels,
+                                                          cfg.scale_factor)]
+        got = _score_maps_batched([jnp.asarray(lv)[None] for lv in levels], cfg)
+        assert len(levels) == 8
+        for lv, s in zip(levels, got):
+            want = _fast_nms_numpy(lv, cfg.fast_threshold, cfg.fast_threshold_min)
+            np.testing.assert_array_equal(np.asarray(s[0]), want)
+            assert (want > 0).sum() > 0
 
     def test_nms_keeps_single_peak(self):
         score = np.zeros((32, 32), np.float32)

@@ -1,4 +1,4 @@
-"""Batched 3D-3D RANSAC pose (TPU-native replacement for the reference's
+"""Batched 3D-3D RANSAC pose (batched replacement for the reference's
 PnP-RANSAC, pnp.rs:29-137): exact recovery on clean data, robustness to
 gross outliers, graceful failure below the minimal-sample size."""
 import jax
